@@ -1,6 +1,6 @@
 // Native frame-ingest runtime: SPSC frame ring + stereo timestamp pairer.
 //
-// TPU-native replacement for the reference's C++ host ingest plumbing:
+// Replacement for the reference's C++ host ingest plumbing:
 //  * message_filters Exact/ApproximateTime synchronizers
 //    (reference: include/gpuimageproc/StereoProcessor.h:45-62,
 //     src/StereoProcessor.cpp:33-77)  -> Pairer

@@ -1,18 +1,19 @@
-"""TPU-native stereo vision / SLAM engine.
+"""Stereo vision / SLAM engine in JAX, run on an NVIDIA GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ROS/CUDA nodelet ``maciejmatuszak/ros_gpu_stereo_processor`` (package
 ``gpuimageproc``): debayer/color conversion, stereo rectification, SAD
 block-matching disparity with prefilter/texture/speckle filtering, disparity
 visualization and Q-matrix reprojection to colored point clouds — driven by a
 demand-activated, jit-compiled frame pipeline — and extended into a distributed
 stereo SLAM system (features, VO, windowed BA, pose-graph optimisation) sharded
-over multi-chip TPU meshes.
+over multi-device meshes.
 
 Reference layer map: see SURVEY.md §1 (reference: include/gpuimageproc/*.h,
-src/*.cpp).  Nothing here is a translation: the compute path is jnp/Pallas, the
-orchestration is jit variant caching over a demand flag-set, and multi-chip
-parallelism (absent from the reference) is first-class via jax.sharding.
+src/*.cpp).  Nothing here is a translation: the compute path is jnp left
+to XLA, the orchestration is jit variant caching over a demand flag-set, and
+multi-device parallelism (absent from the reference) is first-class via
+jax.sharding.
 """
 
 from ros_gpu_stereo_processor_tpu.config import (

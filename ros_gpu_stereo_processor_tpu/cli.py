@@ -7,7 +7,7 @@ recipes become subcommands:
   * ``run``      — process a stereo pair or an EuRoC sequence through the
                    pipeline, dumping image/cloud artifacts
                    (≙ gpu_image_processor.launch);
-  * ``compare``  — A/B the TPU pipeline against the OpenCV CPU oracle on the
+  * ``compare``  — A/B the engine's pipeline against the OpenCV CPU oracle on the
                    same input and report agreement statistics
                    (≙ the side-by-side CPU-vs-GPU test_node.launch);
   * ``bench``    — the streaming throughput benchmark (≙ DisparityTiming);
@@ -39,7 +39,6 @@ def _add_bm_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--refine", action="store_true", help="subpixel refinement")
     p.add_argument("--speckle-size", type=int, default=800)
     p.add_argument("--speckle-diff", type=float, default=5.0)
-    p.add_argument("--no-pallas", action="store_true", help="use jnp oracle path")
     p.add_argument("--algorithm", choices=["bm", "sgm"], default="bm")
     p.add_argument("--sgm-p1", type=float, default=10.0)
     p.add_argument("--sgm-p2", type=float, default=120.0)
@@ -157,7 +156,6 @@ def cmd_run(args) -> int:
 
     model = _load_model(args)
     pipe = StereoPipeline(model, _bm_config(args),
-                          use_pallas=False if args.no_pallas else None,
                           mesh=_mesh_from_args(args),
                           shard_mode=getattr(args, "shard_mode", "rows"))
     outputs = Outputs.of(*args.outputs.split(","))
@@ -275,7 +273,8 @@ def _cv_oracle_disparity(model, cfg, left, right):
 
 
 def _compare_frame(pipe, model, cfg, left, right, encoding):
-    """One TPU-vs-oracle frame comparison; returns (report, tpu, cv, rect)."""
+    """One engine-vs-oracle frame comparison; returns (report, ours, cv,
+    rect)."""
     from ros_gpu_stereo_processor_tpu.config import Outputs
 
     res = pipe.process(
@@ -294,7 +293,7 @@ def _compare_frame(pipe, model, cfg, left, right, encoding):
 
 
 def cmd_compare(args) -> int:
-    """A/B the TPU pipeline against the OpenCV CPU oracle — the reference's
+    """A/B the engine's pipeline against the OpenCV CPU oracle — the reference's
     side-by-side CPU stereo_image_proc comparison (launch/test_node.launch).
 
     Single pair (--left/--right) or a whole sequence (--euroc): the sequence
@@ -304,8 +303,7 @@ def cmd_compare(args) -> int:
 
     model = _load_model(args)
     cfg = _bm_config(args)
-    pipe = StereoPipeline(model, cfg,
-                          use_pallas=False if args.no_pallas else None)
+    pipe = StereoPipeline(model, cfg)
 
     if args.euroc:
         from ros_gpu_stereo_processor_tpu.utils.io import EurocReader
@@ -395,7 +393,6 @@ def cmd_slam(args) -> int:
             num_features=args.features,
             keyframe_every=args.keyframe_every,
             window_size=args.window,
-            use_pallas=False if args.no_pallas else None,
         ),
         _bm_config(args),
     )
@@ -463,14 +460,12 @@ def cmd_serve(args) -> int:
         queue_size=args.queue_size,
         approximate_sync=args.approximate_sync,
         idle_timeout=args.idle_timeout,
-        use_pallas=False if args.no_pallas else None,
     )
     daemon.run()
     return 0
 
 
 def cmd_bench(args) -> int:
-    os.environ.setdefault("BENCH_PALLAS", "0" if args.no_pallas else "1")
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import bench
 
@@ -480,7 +475,7 @@ def cmd_bench(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="tpu-stereo", description="TPU-native stereo vision / SLAM engine"
+        prog="tpu-stereo", description="stereo vision / SLAM engine in JAX"
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -557,7 +552,6 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("bench")
-    p.add_argument("--no-pallas", action="store_true")
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
@@ -565,6 +559,14 @@ def main(argv=None) -> int:
         args.left and args.right
     ):
         ap.error(f"{args.cmd} requires --euroc or --left/--right")
+    if argv is None:
+        # a process entry point (not a library call with explicit argv):
+        # keep compiled programs across runs
+        from ros_gpu_stereo_processor_tpu.utils.device import (
+            enable_compile_cache,
+        )
+
+        enable_compile_cache()
     return args.fn(args)
 
 

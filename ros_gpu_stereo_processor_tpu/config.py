@@ -1,4 +1,4 @@
-"""Configuration dataclasses for the TPU stereo engine.
+"""Configuration dataclasses for the stereo engine.
 
 Covers the reference's three config tiers (SURVEY.md §5.6):
   * the dynamic_reconfigure schema (reference: cfg/GPU.cfg:12-40) becomes
@@ -98,11 +98,11 @@ class SpeckleConfig:
 
     max_speckle_size: int = 800        # cfg/GPU.cfg:34
     max_diff: float = 5.0              # cfg/GPU.cfg:35
-    # TPU label-propagation iteration budget (see ops/speckle.py); the exact
+    # label-propagation iteration budget (see ops/speckle.py); the exact
     # flood fill is sequential so we run a bounded number of min-label passes.
     propagation_iters: int = 64
-    # multi-chip path: cross-band label-merge rounds (ICI boundary
-    # exchanges — parallel/frontend.filter_speckles_row_sharded).  0 (the
+    # multi-chip path: cross-band label-merge rounds (boundary-row
+    # exchanges between devices — parallel/frontend.filter_speckles_row_sharded).  0 (the
     # default) iterates to convergence (a psum'd changed-flag clears), which
     # is exact for any component topology; > 0 forces a fixed bound.
     boundary_merge_rounds: int = 0

@@ -1,14 +1,14 @@
 """Sliding-window bundle adjustment — Gauss–Newton with Schur complement.
 
 The optimisation backend of the SLAM stack (SURVEY.md §7 step 6,
-BASELINE.json config 4/5).  TPU-first formulation:
+BASELINE.json config 4/5).  Accelerator-first formulation:
 
   * **fixed-capacity padded window** (M poses × N landmarks, observation
     mask) — XLA static shapes; absent observations carry zero weight
     (SURVEY.md §7 hard parts: "variable-size keyframe/landmark sets vs XLA
     static shapes — fixed-capacity padded windows with masks");
   * all residual/Jacobian/Hessian-block assembly is batched einsums over the
-    (M, N) observation grid → MXU;
+    (M, N) observation grid (batched matrix products);
   * the reduced camera system (Schur complement over landmarks) is a dense
     (6M, 6M) solve — tiny, stays on-chip;
   * Huber IRLS re-weighting per outer iteration, ``lax.scan`` over a fixed
@@ -18,7 +18,7 @@ BASELINE.json config 4/5).  TPU-first formulation:
 The landmark-marginalisation sums (Σ over n of W·V⁻¹·Wᵀ …) are exactly the
 quantities that shard across devices in the distributed version
 (parallel/dist_ba.py): each chip owns a landmark block and the camera system
-is psum-reduced over ICI.
+is psum-reduced across devices.
 """
 
 from __future__ import annotations
@@ -207,8 +207,8 @@ def bundle_adjust(
         dxi, dX = clip_step(dxi, dX)
         return apply_update(prob, dxi, dX), rms(prob)
 
-    # TPU matmuls default to bf16-precision inputs, which destabilises
-    # Gauss-Newton (observed: rms diverging on-device) — force true f32
+    # f32 matmuls on the GPU default to TF32 inputs (10-bit mantissa),
+    # which destabilises Gauss-Newton — force true f32
     with jax.default_matmul_precision("highest"):
         pf, hist = jax.lax.scan(step, p, None, length=iters)
         return pf, jnp.append(hist, rms(pf))

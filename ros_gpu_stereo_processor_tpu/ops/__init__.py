@@ -1,6 +1,5 @@
-"""Device compute ops (jnp reference paths + Pallas kernels).
+"""Device compute ops: one pure-jnp implementation per op, left to XLA.
 
-Each op module carries a pure-jnp implementation (the correctness oracle twin,
-mirroring the reference's paired GPU/CPU matchers —
-src/GPUStereoProcessor.cpp:18-38) and, where hot, a fused Pallas kernel.
+Each is tested against a CPU oracle (cv2 or numpy), mirroring the reference's
+paired GPU/CPU matchers (src/GPUStereoProcessor.cpp:18-38).
 """

@@ -33,10 +33,10 @@ candidate with the lowest bilateral-weighted truncated-L1 cost over a
 Borders (the outermost 1-pixel frame) are never modified; guidance windows
 are clamped to the image, out-of-bounds taps get zero weight.
 
-TPU notes: ``radius`` and ``iters`` are jit-static so the candidate/offset
-loops fully unroll into fused vector ops — there is no data-dependent
-control flow, the "touched" predicate becomes a select.  Costs accumulate in
-f32 on the VPU; no gathers (window taps are static-offset pads/slices).
+Compilation notes: ``radius`` and ``iters`` are jit-static so the
+candidate/offset loops fully unroll into fused vector ops — there is no
+data-dependent control flow, the "touched" predicate becomes a select.  Costs
+accumulate in f32; no gathers (window taps are static-offset pads/slices).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Color / encoding conversion ops (debayer, gray, channel order, bit depth).
 
-TPU-native replacement for the reference's encoding-driven converter
+Replacement for the reference's encoding-driven converter
 (src/GPUStereoProcessor.cpp:65-88,119-172), which dispatches on ROS image
 encodings via cv_bridge::getConversionCode and runs cv::cuda::cvtColor /
 convertTo.  Here the same encoding vocabulary drives pure-jnp kernels:

@@ -1,10 +1,10 @@
 """Feature detection, description and matching — the sparse frontend.
 
 Extends the engine beyond the reference's dense-only pipeline into VO/SLAM
-(SURVEY.md §7 build step 6; BASELINE.json config 4).  TPU-first design:
+(SURVEY.md §7 build step 6; BASELINE.json config 4).  Data-parallel design:
 
   * **FAST-9** corner test as 16 static circle shifts + a bit-mask doubling
-    trick for the contiguous-arc test — pure VPU, no loops over pixels;
+    trick for the contiguous-arc test — elementwise, no loops over pixels;
   * 3×3 non-max suppression via max-pool comparison;
   * fixed-capacity keypoint sets (``top_k`` over the score map) — static
     shapes for XLA, with validity masks instead of dynamic counts;
@@ -102,28 +102,17 @@ def fast_score_map(img: jnp.ndarray, threshold: float = 20.0) -> jnp.ndarray:
 
 
 def select_keypoints(score_map: jnp.ndarray, k: int = 512):
-    """Top-K corner slots: returns (xy (K,2) f32, score (K,), valid (K,)).
-
-    On TPU, exact ``top_k`` over H·W elements lowers to a full sort —
-    pathologically slow to compile and run; ``approx_max_k`` uses the
-    TPU-native partial-reduction path (we only need *good* corners, not a
-    total order; NMS already thinned the field)."""
+    """Top-K corner slots: returns (xy (K,2) f32, score (K,), valid (K,))."""
     H, W = score_map.shape
-    flat = score_map.reshape(-1)
-    if jax.devices()[0].platform == "tpu":
-        vals, idx = jax.lax.approx_max_k(flat, k, recall_target=0.95)
-    else:
-        vals, idx = jax.lax.top_k(flat, k)
+    vals, idx = jax.lax.top_k(score_map.reshape(-1), k)
     ys = (idx // W).astype(jnp.float32)
     xs = (idx % W).astype(jnp.float32)
     return jnp.stack([xs, ys], -1), vals, vals > 0.0
 
 
 # ---------------------------------------------------------------------------
-# Orientation + descriptors (patch-based, gather-free)
+# Orientation + descriptors (patch-based, no per-pixel gathers)
 #
-# Per-pixel random gathers are the TPU slow path (~14 ns/element; the naive
-# bilinear formulation cost ~18 ms/frame at K=512).  Instead:
 #   1. extract one 32×32 patch per keypoint with dynamic_slice (a lax.scan of
 #      cheap aligned copies — keypoints are integer pixels, so this is exact);
 #   2. orientation moments are two einsums of the patch stack against static
@@ -204,8 +193,11 @@ def extract_patches(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
 
 def orientations_from_patches(patches: jnp.ndarray) -> jnp.ndarray:
     mx, my = _moment_masks()
-    m10 = jnp.einsum("kij,ij->k", patches, jnp.asarray(mx))
-    m01 = jnp.einsum("kij,ij->k", patches, jnp.asarray(my))
+    # full f32: TF32 inputs (the GPU default) can move a keypoint's angle
+    # across a steering-bin boundary and change its descriptor
+    hi = jax.lax.Precision.HIGHEST
+    m10 = jnp.einsum("kij,ij->k", patches, jnp.asarray(mx), precision=hi)
+    m01 = jnp.einsum("kij,ij->k", patches, jnp.asarray(my), precision=hi)
     return jnp.arctan2(m01, m10)
 
 
@@ -323,7 +315,7 @@ def descriptor_signature(desc: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     """(K, 8) uint32 packed descriptors + (K,) validity → (256,) L2-normalised
     bit-frequency signature — a compact whole-image appearance vector (the
     bag-of-words role for loop-closure candidate scoring; similarity between
-    keyframes is then ONE (n_kf × n_kf) matmul on the MXU)."""
+    keyframes is then ONE (n_kf × n_kf) matmul)."""
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = ((desc[:, :, None] >> shifts[None, None, :]) & 1).astype(jnp.float32)
     bits = bits.reshape(desc.shape[0], 256)

@@ -1,16 +1,11 @@
 """Bilinear remap (stereo rectification sampling).
 
-TPU-native replacement for the reference's forked
+Replacement for the reference's forked
 ``image_geometry::PinholeCameraModel::rectifyImageGPU`` → cv::cuda::remap
 call chain (reference: src/GPUStereoProcessor.cpp:236-262, fork calls at
 :244,248).  The (undistort ∘ rectify) source-coordinate maps are precomputed
-on host (utils/calib.py); this module does the bilinear sampling on device.
-
-Two paths:
-  * :func:`remap_bilinear` — pure jnp gather formulation (correctness oracle,
-    runs everywhere);
-  * the fused Pallas rectify→cost-volume kernel consumes the same maps
-    (ops/stereobm_pallas.py) without materialising the rectified image.
+on host (utils/calib.py); this module does the bilinear sampling on device
+as a 4-tap jnp gather, which XLA lowers to one fused kernel.
 
 Out-of-range samples produce 0 (OpenCV BORDER_CONSTANT default, which is what
 cv::cuda::remap uses in the fork's configuration).
@@ -77,6 +72,6 @@ def remap_bilinear(img: jnp.ndarray, src_map: jnp.ndarray) -> jnp.ndarray:
 def rectify_pair(images: jnp.ndarray, maps: jnp.ndarray) -> jnp.ndarray:
     """Rectify a batched L/R stack: images (2, H, W[, C]) with maps
     (2, H, W, 2) → (2, H, W[, C]).  The two sides vectorise into one device
-    launch — the TPU counterpart of the reference's dual-CUDA-stream side
+    launch — the counterpart of the reference's dual-CUDA-stream side
     parallelism (src/GPUStereoProcessor.cpp:190-200)."""
     return jax.vmap(remap_bilinear)(images, maps)

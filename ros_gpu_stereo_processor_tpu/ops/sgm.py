@@ -5,14 +5,14 @@ refinement is declared but stubbed out — SURVEY.md §2.8b): SGM aggregates
 matching costs along image paths with small/large jump penalties P1/P2,
 giving dense disparity that survives low texture (BASELINE.json config 3).
 
-TPU formulation: each direction's recurrence
+Formulation: each direction's recurrence
 
     L(p, d) = C(p, d) + min( L(p−r, d),
                              L(p−r, d±1) + P1,
                              min_{d'} L(p−r, d') + P2 ) − min_{d'} L(p−r, d')
 
 is a ``lax.scan`` along the path axis whose carry is the full perpendicular
-slice × disparity plane — each scan step is one fused VPU update over
+slice × disparity plane — each scan step is one fused update over
 (H × ndisp) (horizontal paths) or (W × ndisp) (vertical paths); the d-mins
 are static shifts, no gathers.  Horizontal paths are embarrassingly parallel
 across rows (the row-sharded multi-chip layout aggregates them with zero
@@ -61,8 +61,8 @@ def _aggregate_axis(cost: jnp.ndarray, axis: int, reverse: bool,
         return out, out
 
     init = jnp.zeros_like(seq[0])
-    # unroll: each scan step is a small VPU update over one perpendicular
-    # slice; per-step dispatch overhead halves the throughput at unroll=1
+    # unroll: each scan step is a small update over one perpendicular
+    # slice; unrolling amortises the per-step loop overhead
     _, out = jax.lax.scan(step, init, seq, reverse=reverse, unroll=4)
     return jnp.moveaxis(out, 0, axis)
 

@@ -7,14 +7,14 @@ middle of the hot path (SURVEY.md §3.1 boundary ②).  Here the filter stays on
 device: speckles are connected components (4-connectivity, neighbours linked
 when |Δdisparity| ≤ max_diff) with area ≤ max_speckle_size.
 
-Flood fill is inherently sequential; two TPU-friendly label-propagation
+Flood fill is inherently sequential; two data-parallel label-propagation
 schemes are provided:
 
   * ``method="scan"`` (default, fast): iterated **segmented min-scans** along
-    rows and columns (``lax.associative_scan`` with a reset-at-disconnect
-    operator).  Each pass is O(log W) vectorised VPU steps with *no gathers*
-    (random gathers are the TPU slow path); K passes propagate labels along
-    any K-bend monotone path, which covers realistic speckle shapes.
+    rows and columns (Hillis–Steele doubling with a reset-at-disconnect
+    rule).  Each pass is O(log W) vectorised steps with *no gathers*; K
+    passes propagate labels along any K-bend monotone path, which covers
+    realistic speckle shapes.
   * ``method="gather"`` (topology-exact, slower): 3×3 min-prop with pointer
     jumping (label ← label[label]) — O(log diameter) convergence for any
     topology.
@@ -22,7 +22,7 @@ schemes are provided:
 The keep/blank decision (component area > max_speckle_size) is computed
 exactly with two global device sorts and a windowed run-extent test
 (:func:`_keep_large_components`) — no scatter-add histogram and no
-``sizes[lab]`` gather, both of which lower to serial loops on TPU.
+``sizes[lab]`` gather.
 Behavioural equivalence with the OpenCV oracle is validated statistically in
 tests (SURVEY.md §7 hard parts).
 """
@@ -51,8 +51,7 @@ def _segmented_min_scan(lab: jnp.ndarray, conn: jnp.ndarray, axis: int) -> jnp.n
     False (``conn[i]`` = element i connected to element i−1; conn[0]=False).
 
     Hand-rolled Hillis–Steele doubling with static shifts — lowers to plain
-    shifted vector min/and ops (measurably faster on TPU than
-    ``lax.associative_scan``'s generic lowering).  Propagates the segment
+    shifted vector min/and ops.  Propagates the segment
     minimum to *every* element of the segment (forward + backward pass).
     """
     n = lab.shape[axis]
@@ -144,12 +143,9 @@ def _keep_large_components(lab: jnp.ndarray, max_speckle_size: int) -> jnp.ndarr
     """keep[p] ⇔ (# pixels sharing p's label) > max_speckle_size — exact, via
     ONE global sort + a windowed run-extent test + ONE packed unsort.
 
-    The obvious ``zeros(n).at[lab].add(1)`` scatter-add histogram (and the
-    ``sizes[lab]`` gather after it) each lower to multi-millisecond serial
-    loops on TPU; device sorts don't (~0.45 ms in-graph at 360 K keys,
-    nearly size-independent — utils/roofline.py).  And the keep decision
-    never needs the *count*, only ``count > T``, which a sorted key array
-    answers with one shifted compare + one windowed OR:
+    The keep decision never needs the *count*, only ``count > T``, which a
+    sorted key array answers with one shifted compare + one windowed OR
+    (no scatter-add histogram, no ``sizes[lab]`` gather):
 
       sort (label, pos) by label.  In sorted order a component is a run;
       ``eq[j] = (keys[j] == keys[j+T])`` marks exactly the positions whose
@@ -270,11 +266,7 @@ def filter_speckles(
     Returns (filtered disparity with removed pixels set to ``fill_value``,
     updated valid mask).
     """
-    if method == "pallas":
-        from ros_gpu_stereo_processor_tpu.ops import speckle_pallas
-
-        lab = speckle_pallas.labels_pallas(disp, valid, max_diff, iters)
-    elif method == "scan":
+    if method == "scan":
         lab = _labels_scan(disp, valid, max_diff, iters)
     elif method == "gather":
         lab = _labels_gather(disp, valid, max_diff, iters)
@@ -282,8 +274,7 @@ def filter_speckles(
         raise ValueError(f"unknown method {method!r}")
 
     # exact size>threshold decision via two global sorts + a windowed
-    # run-extent test (no scatter-add histogram, no sizes[lab] gather — both
-    # serialize on TPU; see _keep_large_components)
+    # run-extent test (see _keep_large_components)
     keep = _keep_large_components(lab, max_speckle_size) & valid
 
     out = jnp.where(keep, disp, jnp.float32(fill_value))

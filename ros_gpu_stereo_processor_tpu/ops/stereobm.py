@@ -1,6 +1,6 @@
 """SAD block-matching stereo disparity — pure-jnp reference path.
 
-TPU-native re-design of the reference's disparity engine, which delegates to
+Re-design of the reference's disparity engine, which delegates to
 ``cv::cuda::StereoBM`` (GPU) paired with ``cv::StereoBM`` (CPU oracle) with
 mirrored settings (reference: src/GPUStereoProcessor.cpp:12-39,264-321).  The
 algorithm re-implemented here from its published semantics:
@@ -18,9 +18,8 @@ src/GPUStereoProcessor.cpp:290-295; we implement the intent per SURVEY.md
 Everything is static-shaped and scan-based: the disparity loop is a
 ``lax.scan`` (no Python-level unrolling), window sums are
 ``lax.reduce_window`` which XLA lowers to fused separable accumulations.
-The fused Pallas fast path lives in ops/stereobm_pallas.py; this module is
-the correctness oracle twin (tested against OpenCV's CPU StereoBM, the same
-parity strategy the reference uses).
+This module is the one matcher path on every device, tested against
+OpenCV's CPU StereoBM (the same parity strategy the reference uses).
 """
 
 from __future__ import annotations
@@ -252,8 +251,7 @@ def right_disparity_from_cost(cost: jnp.ndarray, cfg: StereoBMConfig) -> jnp.nda
 
     cost[d, y, x] measures L(x) vs R(x−(mind+d)), so the candidates for right
     pixel xr are cost[d, y, xr + mind + d].  Computed gather-free by scanning
-    d with accumulators kept in a frame rolled by one column per step (the
-    same incremental-roll idea as the fused Pallas kernel).
+    d with accumulators kept in a frame rolled by one column per step.
 
     Returns float32 absolute right disparity (mind−1 where no candidate).
     """
@@ -325,8 +323,8 @@ def left_right_check(
     """Gather-free left-right consistency: pixel x passes iff
     |disp_l[x] − disp_r[x − disp_l[x]]| ≤ max_diff.
 
-    Instead of a per-pixel gather (TPU slow path), test every candidate k of
-    the search range with a rolled comparison — nd cheap vector ops.
+    Instead of a per-pixel gather, test every candidate k of the search
+    range with a rolled comparison — nd cheap vector ops.
     """
     nd = cfg.num_disparities
     mind = cfg.min_disparity

@@ -1,4 +1,4 @@
-"""Multi-chip parallelism (new in the TPU build — the reference is strictly
+"""Multi-chip parallelism (new in this engine — the reference is strictly
 single-GPU/single-process, SURVEY.md §2 parallelism note).  Meshes, sharded
 dense frontend (row bands with halo exchange; disparity slabs with
 argmin-reduce), and distributed optimisation."""

@@ -3,7 +3,7 @@
 The multi-host optimisation backend (SURVEY.md §5.8, BASELINE.json config 5):
 landmarks (map blocks) are sharded across the mesh; each chip assembles the
 Gauss–Newton normal-equation contributions of its landmark block, the reduced
-camera system is **psum-reduced over ICI**, every chip solves the identical
+camera system is **psum-reduced across devices**, every chip solves the identical
 (tiny, 6M×6M) system, and landmark updates back-substitute locally — the
 Schur-complement reduction over collectives called for by the north star.
 
@@ -95,7 +95,8 @@ def bundle_adjust_sharded(
             cnt = jax.lax.psum(jnp.sum(mask), axis)
             return (Rn, tn, points + dX), jnp.sqrt(sq / jnp.maximum(cnt, 1.0))
 
-        # force true-f32 matmuls (TPU default truncates to bf16 — GN diverges)
+        # force true-f32 matmuls (the GPU default rounds inputs to TF32 —
+        # GN diverges)
         with jax.default_matmul_precision("highest"):
             (Rf, tf, ptsf), hist = jax.lax.scan(
                 one_iter, (R, t, points), None, length=iters

@@ -1,14 +1,14 @@
 """Sharded dense stereo frontend: the cost volume across chips.
 
 The reference's only device parallelism is two CUDA streams on one GPU
-(SURVEY.md §2 parallelism note).  The TPU engine's scaling axis is the cost
+(SURVEY.md §2 parallelism note).  This engine's scaling axis is the cost
 volume (H × W × ndisp — the "sequence length" of this domain, SURVEY.md §5.7),
 sharded two ways:
 
   * **Row bands** (:func:`disparity_row_sharded`): each chip matches a
     horizontal band.  The SAD window needs ``block_radius`` rows of
-    neighbouring bands — exchanged over ICI with ``lax.ppermute`` (halo
-    exchange).  Bit-identical to the single-chip matcher.
+    neighbouring bands — exchanged between devices with ``lax.ppermute``
+    (halo exchange).  Bit-identical to the single-chip matcher.
   * **Disparity slabs** (:func:`disparity_slab_sharded`): each chip computes a
     contiguous slab of the disparity search range over the full image, then a
     global argmin-reduce combines winners via ``lax.pmin`` on packed
@@ -75,19 +75,12 @@ def disparity_row_sharded(
     cfg: StereoBMConfig,
     mesh: Mesh,
     axis: str = "rows",
-    use_pallas: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Row-band-sharded block matching, numerically identical to
     :func:`ops.stereobm.compute_disparity`.
 
     Inputs are (H, W) rectified mono images (replicated or row-sharded);
     outputs are row-sharded (disparity float32, valid bool).
-
-    ``use_pallas`` runs the fused single-chip kernel
-    (:func:`ops.stereobm_pallas.fused_raw`) on each band inside shard_map —
-    the halo rows feed the kernel's window reads directly, so per-band
-    results are bit-identical to the single-chip fused path (VERDICT
-    round-2 item 4).
     """
     H, W = left_rect.shape
     n = mesh.shape[axis]
@@ -101,30 +94,6 @@ def disparity_row_sharded(
         row_offset = idx * hb
         lf_e = _halo_exchange(lf_b, halo, axis)
         rf_e = _halo_exchange(rf_b, halo, axis)
-        if use_pallas:
-            from ros_gpu_stereo_processor_tpu.ops import stereobm_pallas as bmp
-
-            # tile_h=None → auto: whole band in one grid program when VMEM
-            # allows (per-program overhead dominates on v5e, see
-            # stereobm_pallas._auto_tile_h)
-            tile_h = None
-            disp_raw, best_cost, excl = bmp.fused_raw(
-                lf_e, rf_e, cfg, tile_h=tile_h, halo=halo)
-            disp, valid = bmp.fused_gates(
-                disp_raw, best_cost, excl, cfg, tex_b,
-                row_offset=row_offset, total_rows=H)
-            if cfg.lr_check:
-                # mirror trick (prefilter inversion cancels in |·|): flips
-                # are column-local, so they are exact per row band
-                dr_raw, dr_cost, dr_excl = bmp.fused_raw(
-                    jnp.flip(rf_e, axis=1), jnp.flip(lf_e, axis=1), cfg,
-                    tile_h=tile_h, halo=halo)
-                disp_r = jnp.flip(dr_raw, axis=1)
-                valid &= bm.left_right_check(disp, disp_r, cfg,
-                                             cfg.lr_max_diff)
-                disp = jnp.where(valid, disp,
-                                 jnp.float32(cfg.min_disparity - 1))
-            return disp, valid
         cost = bm.sad_cost_volume(lf_e, rf_e, cfg)[:, halo:-halo, :]
         disp, valid = bm.wta_disparity(
             cost, lf_e[halo:-halo], cfg,
@@ -143,11 +112,9 @@ def disparity_row_sharded(
     spec = P(axis)
 
     def build():
-        # pallas_call declares no varying-mesh-axes metadata on its outputs,
-        # so the vma type check must be off for the fused per-band path
         sm = shard_map(
             band, mesh=mesh, in_specs=(spec, spec, spec),
-            out_specs=(spec, spec), check_vma=not use_pallas,
+            out_specs=(spec, spec),
         )
 
         def whole(l, r):
@@ -158,68 +125,8 @@ def disparity_row_sharded(
 
         return whole
 
-    key = ("row", cfg, mesh, axis, use_pallas, left_rect.shape)
+    key = ("row", cfg, mesh, axis, left_rect.shape)
     return _jit_cached(key, build)(left_rect, right_rect)
-
-
-def remap_row_sharded(
-    img: jnp.ndarray,
-    banded,
-    mesh: Mesh,
-    axis: str = "rows",
-) -> jnp.ndarray:
-    """Row-band-sharded Pallas rectification remap.
-
-    ``banded`` is an :class:`ops.remap_pallas.BandedPallasRemapper` built for
-    ``mesh.shape[axis]`` bands.  The source image is replicated (it is the
-    raw camera frame — each chip already holds it after ingest) and each
-    chip runs the windowed-gather kernel for its destination band: window
-    placements are host-precomputed per band with absolute source rows, so
-    there is NO halo exchange — rectification reads are resolved at plan
-    time, not at runtime.  Output is row-sharded (H, W), bit-identical to
-    the single-chip kernel and the jnp oracle.
-
-    Replaces the mesh-path jnp gather fallback (round-3 VERDICT weak item
-    3); reference anchor: forked rectifyImageGPU,
-    /root/reference/src/GPUStereoProcessor.cpp:244-248.
-    """
-    if banded.n_bands != mesh.shape[axis]:
-        raise ValueError(
-            f"banded remapper has {banded.n_bands} bands, mesh axis "
-            f"{axis}={mesh.shape[axis]}"
-        )
-    if img.ndim == 3:
-        # color: per-channel kernel calls (same as PallasRemapper.__call__)
-        return jnp.stack(
-            [remap_row_sharded(img[..., c], banded, mesh, axis)
-             for c in range(img.shape[-1])],
-            axis=-1,
-        )
-    orig_dtype = img.dtype
-
-    def body(img_pad, *band_arrays):
-        return banded.band_apply(img_pad, *band_arrays)
-
-    def build():
-        sm = shard_map(
-            body, mesh=mesh,
-            in_specs=(P(),) + (P(axis),) * 10,
-            out_specs=P(axis),
-            check_vma=False,   # pallas_call declares no varying-mesh-axes
-        )
-
-        def whole(im, *stacked):
-            out = sm(banded.pad_source(im), *stacked)
-            out = out.reshape(banded.height, banded.width)
-            if jnp.issubdtype(orig_dtype, jnp.integer):
-                info = jnp.iinfo(orig_dtype)
-                out = jnp.clip(jnp.round(out), info.min, info.max)
-            return out.astype(orig_dtype)
-
-        return whole
-
-    key = ("remap_band", id(banded), mesh, axis, img.shape, str(orig_dtype))
-    return _jit_cached(key, build)(img, *banded._stacked)
 
 
 def disparity_slab_sharded(
@@ -242,16 +149,8 @@ def disparity_slab_sharded(
     neighbours and the owning slab's parabola delta is psum-combined.
     Uniqueness is a local masked min (|d − best| > 1) pmin-reduced.
 
-    **Design note (production surface):** slab mode deliberately runs the
-    XLA cost-volume path, never the fused Pallas matcher.  The fused
-    kernel's entire advantage is its zero-HBM cost volume (VMEM band walk);
-    the cross-slab subpixel/uniqueness reductions above require
-    materialised cost planes, so sharding the disparity axis would force
-    the volume back into HBM and forfeit the fusion.  Multi-chip production
-    deployments should row-shard (``shard_mode='rows'`` — fused kernels per
-    band); slab mode is the collective-reduce alternative kept for the
-    BASELINE config-3 shape and the scaling study (SCALING.json
-    disp_slabs).
+    Slab mode is the collective-reduce alternative to row bands, kept for
+    the BASELINE config-3 shape (128 candidates).
     """
     H, W = left_rect.shape
     n = mesh.shape[axis]
@@ -377,25 +276,15 @@ def disparity_sgm_row_sharded(
     p1: float = 10.0,
     p2: float = 120.0,
     warmup_rows: int = 32,
-    use_pallas: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Row-band-sharded SGM (4 paths).
 
     Horizontal paths are embarrassingly parallel per row — **exact** under
     row sharding.  Vertical paths carry state across rows; each band scans a
-    ``warmup_rows`` halo (exchanged over ICI) before its own rows so the
+    ``warmup_rows`` halo (exchanged with the neighbour bands) before its own rows so the
     recurrence state converges — the standard tiled-SGM approximation (the
     SGM recurrence forgets its initialisation geometrically through the
     −min(L) normalisation; tests gate ≥99% agreement with single-chip SGM).
-
-    ``use_pallas`` runs the fused quantized-volume SGM
-    (:func:`ops.sgm_pallas.sgm_fused_raw`) on each halo-extended band inside
-    shard_map — the same extended-band-then-slice semantics as the jnp path,
-    so agreement gates carry over (VERDICT round-2 item 4).  With
-    ``cfg.lr_check`` the band assembles the aggregated total from the fused
-    kernels' quantized volumes and runs the oracle's WTA + consistency tail
-    on it (the single-chip fused path's own lr_check recipe,
-    ops/sgm_pallas.compute_disparity_sgm_fused) — no jnp-scan fallback.
     """
     from ros_gpu_stereo_processor_tpu.ops import sgm as sgm_ops
 
@@ -407,7 +296,6 @@ def disparity_sgm_row_sharded(
     if halo > H // n:
         # a band can only export as many halo rows as it owns
         halo = H // n
-    integer_input = jnp.issubdtype(left_rect.dtype, jnp.integer)
 
     def band(lf_b, rf_b, tex_b):
         idx = jax.lax.axis_index(axis)
@@ -415,54 +303,6 @@ def disparity_sgm_row_sharded(
         row_offset = idx * hb
         lf_e = _halo_exchange(lf_b, halo, axis)
         rf_e = _halo_exchange(rf_b, halo, axis)
-        if use_pallas:
-            from ros_gpu_stereo_processor_tpu.ops import (
-                sgm_pallas, stereobm_pallas as bmp,
-            )
-
-            if cfg.lr_check:
-                # assemble this band's aggregated total from the fused
-                # kernels' quantized volumes and run the oracle WTA +
-                # consistency tail on it — mirrors the single-chip fused
-                # lr_check recipe (compute_disparity_sgm_fused), row-wise
-                # exact per band
-                nd = cfg.num_disparities
-                r = cfg.block_radius
-                rows_e, W_b = lf_e.shape
-                cost_n, exc_v, exc_h, cost_bias, exc_bias = (
-                    sgm_pallas.sgm_fused_raw(
-                        lf_e, rf_e, cfg, p1, p2,
-                        integer_input=integer_input, return_volumes=True,
-                    )
-                )
-                total = (
-                    4.0 * sgm_pallas._load(
-                        cost_n[:, :rows_e, :W_b], cost_bias)
-                    + sgm_pallas._load(exc_v[:, :rows_e, :W_b], exc_bias)
-                    + sgm_pallas._load(exc_h[:, :rows_e, :W_b], exc_bias)
-                )
-                col = jax.lax.broadcasted_iota(
-                    jnp.int32, (nd, rows_e, W_b), 2)
-                dd = (jax.lax.broadcasted_iota(
-                    jnp.int32, (nd, rows_e, W_b), 0) + cfg.min_disparity)
-                invalid = ~((col - dd >= r) & (col - dd <= W_b - 1 - r))
-                total = jnp.where(invalid, bm._BIG, total)
-                cost_agg = total[:, halo:-halo, :]
-                disp, valid = bm.wta_disparity(
-                    cost_agg, lf_e[halo:-halo], cfg,
-                    tex=tex_b, row_offset=row_offset, total_rows=H,
-                )
-                disp_r = bm.right_disparity_from_cost(cost_agg, cfg)
-                valid &= bm.left_right_check(disp, disp_r, cfg,
-                                             cfg.lr_max_diff)
-                disp = jnp.where(valid, disp,
-                                 jnp.float32(cfg.min_disparity - 1))
-                return disp, valid
-            raw_d, raw_c, raw_x = sgm_pallas.sgm_fused_raw(
-                lf_e, rf_e, cfg, p1, p2, integer_input=integer_input)
-            return bmp.fused_gates(
-                raw_d[halo:-halo], raw_c[halo:-halo], raw_x[halo:-halo],
-                cfg, tex_b, row_offset=row_offset, total_rows=H)
         cost = bm.sad_cost_volume(lf_e, rf_e, cfg)      # (nd, hb+2*halo, W)
         invalid = cost >= bm._BIG
         cost_c = jnp.where(
@@ -493,7 +333,6 @@ def disparity_sgm_row_sharded(
         sm = shard_map(
             band, mesh=mesh,
             in_specs=(spec, spec, spec), out_specs=(spec, spec),
-            check_vma=not use_pallas,
         )
 
         def whole(l, r):
@@ -504,8 +343,7 @@ def disparity_sgm_row_sharded(
 
         return whole
 
-    key = ("sgm_row", cfg, mesh, axis, p1, p2, warmup_rows, use_pallas,
-           left_rect.shape)
+    key = ("sgm_row", cfg, mesh, axis, p1, p2, warmup_rows, left_rect.shape)
     return _jit_cached(key, build)(left_rect, right_rect)
 
 
@@ -543,7 +381,7 @@ def filter_speckles_row_sharded(
          exact); totals are injected at boundary pixels and max-propagated
          in-band (saturating at max_speckle_size+1, which keeps the
          keep/blank decision exact).  Only the (n, 2, W) boundary records
-         ride ICI.
+         cross devices.
 
     Same contract as :func:`ops.speckle.filter_speckles`, and exact
     agreement with it (tests gate equality).
@@ -667,17 +505,7 @@ def filter_speckles_row_sharded(
             mine = jax.lax.dynamic_slice_in_dim(btot, me, 1, 0)[0]  # (2, W)
             field = cnt_img.at[0].set(jnp.maximum(cnt_img[0], mine[0]))
             field = field.at[-1].set(jnp.maximum(field[-1], mine[1]))
-            if jax.default_backend() == "tpu" and cap < (1 << 19):
-                # VMEM-resident sweeps (exact twin, parity-gated in
-                # tests/test_speckle.py); the jnp lowering round-trips HBM
-                # on every doubling step.  CPU meshes keep the jnp path —
-                # the Pallas interpreter would dominate CI time.
-                from ros_gpu_stereo_processor_tpu.ops import speckle_pallas
-
-                sizes = speckle_pallas.max_propagate_pallas(
-                    field, conn_x, conn_y, 4 * hb)
-            else:
-                sizes = sp._max_propagate(field, conn_x, conn_y, 4 * hb)
+            sizes = sp._max_propagate(field, conn_x, conn_y, 4 * hb)
         else:
             sizes = cnt_img
 
@@ -712,8 +540,9 @@ def bilateral_row_sharded(
 
     The filter is a bounded-influence local relaxation: each of the
     ``2·iters`` checkerboard half-steps moves information at most ``radius``
-    rows, so a halo of ``2·iters·radius`` rows (exchanged once over ICI)
-    makes each band's owned rows *bit-identical* to the single-chip filter
+    rows, so a halo of ``2·iters·radius`` rows (exchanged once with the
+    neighbour bands) makes each band's owned rows *bit-identical* to the
+    single-chip filter
     (ops/bilateral.py).  Halo is clamped to the band height; beyond that the
     result is the standard tiled approximation.
     """

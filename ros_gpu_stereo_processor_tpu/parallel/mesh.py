@@ -1,9 +1,9 @@
 """Device-mesh construction helpers.
 
 The reference has no distributed backend at all (SURVEY.md §5.8): its
-"communication" is ROS pub/sub.  The TPU engine's communication layer is
-`jax.sharding.Mesh` + shard_map with XLA collectives over ICI.  Axis
-vocabulary:
+"communication" is ROS pub/sub.  This engine's communication layer is
+`jax.sharding.Mesh` + shard_map with XLA collectives between devices (NVLink
+between the cards of one host).  Axis vocabulary:
 
   * ``rows``  — image row-band data parallelism for the dense frontend
     (halo exchange via ppermute),

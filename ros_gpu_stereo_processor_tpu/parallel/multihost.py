@@ -2,12 +2,12 @@
 host-local frame feeding.
 
 The reference is strictly single-process/single-GPU (SURVEY.md §5.8 — its
-only "communication" is ROS pub/sub).  The TPU engine's multi-host story:
+only "communication" is ROS pub/sub).  This engine's multi-host story:
 
   * :func:`initialize` — one call per process wires the JAX distributed
     runtime (coordinator rendezvous); after it, ``jax.devices()`` spans every
-    host's chips and pjit/shard_map collectives ride ICI within a host and
-    DCN across hosts.
+    host's devices and pjit/shard_map collectives ride the intra-host device
+    links within a host and the network across hosts.
   * :func:`global_mesh` — a Mesh over the *global* device list, e.g.
     ``("kf", "rows")`` = host-level keyframe partitioning × per-host row
     bands (the layout of SURVEY.md §7 step 7).
@@ -21,7 +21,8 @@ CI story (SURVEY.md §4 implications): everything here runs on CPU-backend
 processes — ``initialize(..., cpu_devices_per_process=N)`` forces an
 N-device virtual CPU "chip set" per process and gloo collectives, so
 N-host sharding logic is exercised by ``tests/test_multihost.py`` launching
-real separate processes (no TPU pod needed).  Run a worker by hand:
+real separate processes (no multi-host cluster needed).  Run a worker by
+hand:
 
     python -m ros_gpu_stereo_processor_tpu.parallel.multihost \
         --coordinator 127.0.0.1:9991 --num-processes 2 --process-id 0 \
@@ -45,10 +46,11 @@ def initialize(
 ) -> None:
     """Initialise the JAX distributed runtime for this process.
 
-    On a real TPU pod slice the three Nones let JAX read the cluster env
-    (TPU_WORKER_HOSTNAMES etc.).  ``cpu_devices_per_process`` switches to the
-    CPU backend with that many virtual devices and gloo cross-process
-    collectives — the CI configuration.
+    On a real cluster, pass the coordinator address, process count and
+    process id: nothing in the environment supplies them.
+    ``cpu_devices_per_process`` switches to the CPU backend with that many
+    virtual devices and gloo cross-process collectives — the CI
+    configuration.
     """
     import jax
 
@@ -57,8 +59,8 @@ def initialize(
         try:
             jax.config.update("jax_num_cpu_devices", int(cpu_devices_per_process))
         except RuntimeError:
-            # a PJRT plugin already initialised a backend (e.g. an
-            # interpreter startup hook): the launcher must pass
+            # a backend is already initialised in this process: the
+            # launcher must pass
             # XLA_FLAGS=--xla_force_host_platform_device_count=N instead,
             # which the CPU client reads at its own (lazy) init
             flags = os.environ.get("XLA_FLAGS", "")
@@ -84,8 +86,8 @@ def global_mesh(axis_names: Tuple[str, ...], shape: Optional[Tuple[int, ...]] = 
 
     Default 2-axis shape puts processes on the first axis and each process's
     local devices on the second — host-level partitioning × chip-level
-    sharding (e.g. ``("kf", "rows")``), so first-axis collectives ride DCN
-    and second-axis collectives stay on ICI.
+    sharding (e.g. ``("kf", "rows")``), so first-axis collectives cross the
+    network and second-axis collectives stay on the intra-host links.
     """
     import jax
     from jax.sharding import Mesh

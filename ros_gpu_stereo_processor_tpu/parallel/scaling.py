@@ -1,10 +1,9 @@
 """Scaling-efficiency measurement harness.
 
-The north star asks for frames/s scaling efficiency at 1 chip / 1 host /
-N hosts.  This harness measures the row-sharded dense frontend on sub-meshes
-of 1..N devices and reports throughput and efficiency vs linear scaling.
-It runs identically on a virtual CPU mesh (CI; numbers are *not* hardware-
-representative there) and on real multi-chip slices when available.
+Measures the row-sharded dense frontend on sub-meshes of 1..N devices and
+reports throughput and efficiency vs linear scaling.  It runs identically on
+a virtual CPU mesh (CI; numbers are *not* hardware-representative there) and
+on real multi-device hosts.
 """
 
 from __future__ import annotations
@@ -30,31 +29,14 @@ def measure_scaling(
     device_counts: List[int] | None = None,
     batch: int = 4,
     iters: int = 3,
-    overhead_ms: float = 0.0,
-    mode: str = "rows",
-    max_speckle_size: int = 0,
-    use_pallas: bool = False,
-    include_unsharded: bool = False,
 ) -> Dict:
-    """Throughput of the sharded frontend at each device count.
-
-    ``mode``: 'rows' (row-band halo exchange) or 'disp' (disparity-slab
-    argmin-reduce).  ``max_speckle_size`` > 0 adds the sharded speckle filter
-    to the step (rows mode) — the stage whose per-chip cost must shrink with
-    the mesh (VERDICT round-2 item 2).  ``include_unsharded`` also times the
-    single-chip unsharded matcher (no mesh, no shard_map) so the
-    1-device-mesh-vs-unsharded delta bounds shard_map overhead.
+    """Throughput of the row-sharded matcher at each device count.
 
     Returns {"results": [{n, fps, ms_per_frame}], "efficiency": {n: e}}
-    where e = fps(n) / (n · fps(1)); plus "unsharded_ms_per_frame" when
-    requested.
+    where e = fps(n) / (n · fps(1)), plus the wall-time ratio to the
+    smallest device count (the meaningful signal on an oversubscribed
+    virtual CPU mesh, where n devices add no hardware).
     """
-    from ros_gpu_stereo_processor_tpu.ops import stereobm as bm_ops
-    from ros_gpu_stereo_processor_tpu.ops import speckle as speckle_ops
-    from ros_gpu_stereo_processor_tpu.parallel.frontend import (
-        disparity_slab_sharded, filter_speckles_row_sharded,
-    )
-
     rng = np.random.default_rng(0)
     navail = len(jax.devices())
     if device_counts is None:
@@ -68,33 +50,23 @@ def measure_scaling(
     )
 
     def timed(run):
-        float(run(lefts, rights))  # compile
+        jax.block_until_ready(run(lefts, rights))  # compile
         t0 = time.perf_counter()
         for _ in range(iters):
-            float(run(lefts, rights))
+            jax.block_until_ready(run(lefts, rights))
         dt = (time.perf_counter() - t0) / iters
-        return max(dt * 1e3 - overhead_ms, 1e-6) / batch
+        return max(dt * 1e3, 1e-6) / batch
 
     results = []
     for n in device_counts:
-        if mode == "rows" and height % n != 0:
+        if height % n != 0:
             continue
-        if mode == "disp" and cfg.num_disparities % n != 0:
-            continue
-        mesh = make_mesh(n, ("rows",) if mode == "rows" else ("disp",))
+        mesh = make_mesh(n, ("rows",))
 
         @jax.jit
         def run(ls, rs):
             def step(c, lr):
-                if mode == "disp":
-                    d, v = disparity_slab_sharded(
-                        lr[0], lr[1], cfg, mesh, axis="disp")
-                else:
-                    d, v = disparity_row_sharded(
-                        lr[0], lr[1], cfg, mesh, use_pallas=use_pallas)
-                if max_speckle_size > 0 and mode == "rows":
-                    d, v = filter_speckles_row_sharded(
-                        d, v, mesh, max_speckle_size=max_speckle_size)
+                d, v = disparity_row_sharded(lr[0], lr[1], cfg, mesh)
                 return c, d.sum()
 
             return jax.lax.scan(step, 0, jnp.stack([ls, rs], 1))[1].sum()
@@ -103,59 +75,18 @@ def measure_scaling(
         results.append({"n_devices": n, "ms_per_frame": round(ms, 3),
                         "fps": round(1e3 / ms, 2)})
 
-    # baseline = the true 1-device run when present; divisibility filters can
-    # drop entries, so never assume results[0] is it.  With no 1-device leg
-    # the overheads are normalized to the smallest measured count and the key
-    # says so.
-    base_entry = next(
-        (r for r in results if r["n_devices"] == 1),
-        results[0] if results else None,
-    )
+    # baseline = the smallest measured device count (1 unless the
+    # divisibility filter dropped it); eff(base) == 1.0 always
+    base_entry = results[0] if results else None
     base = base_entry["fps"] if base_entry else 1.0
     base_n = base_entry["n_devices"] if base_entry else 1
-    # normalize against the baseline's own device count so a missing
-    # 1-device leg doesn't skew the column: eff(base) == 1.0 always
+    base_ms = base_entry["ms_per_frame"] if base_entry else 1.0
     eff = {
         r["n_devices"]: round(
             r["fps"] / ((r["n_devices"] / base_n) * base), 3)
         for r in results
     }
-    # On an OVERSUBSCRIBED mesh (virtual CPU devices sharing few physical
-    # cores) `efficiency` is meaningless — n devices add no hardware, so
-    # fps(n)/(n·fps(1)) trends to 1/n by construction.  The meaningful
-    # CI signal there is wall-time inflation at fixed total work:
-    # t(n)/t(1) ≈ 1 + sharding tax (halo exchange + collectives) while
-    # per-device work shrinks as 1/n.
-    base_ms = base_entry["ms_per_frame"] if base_entry else 1.0
-    overhead_key = (
-        "wall_overhead_vs_1dev" if base_n == 1
-        else f"wall_overhead_vs_{base_n}dev"
-    )
-    out = {"mode": mode, "speckle": max_speckle_size,
-           "results": results, "efficiency": eff,
-           overhead_key: {
-               r["n_devices"]: round(r["ms_per_frame"] / base_ms, 3)
-               for r in results
-           }}
-
-    if include_unsharded:
-        if use_pallas:
-            from ros_gpu_stereo_processor_tpu.ops import stereobm_pallas
-            matcher = lambda l, r: stereobm_pallas.compute_disparity_fused(
-                l, r, cfg)
-        else:
-            matcher = lambda l, r: bm_ops.compute_disparity(l, r, cfg)
-
-        @jax.jit
-        def run_unsharded(ls, rs):
-            def step(c, lr):
-                d, v = matcher(lr[0], lr[1])
-                if max_speckle_size > 0:
-                    d, v = speckle_ops.filter_speckles(
-                        d, v, max_speckle_size=max_speckle_size)
-                return c, d.sum()
-
-            return jax.lax.scan(step, 0, jnp.stack([ls, rs], 1))[1].sum()
-
-        out["unsharded_ms_per_frame"] = round(timed(run_unsharded), 3)
-    return out
+    return {"results": results, "efficiency": eff,
+            f"wall_overhead_vs_{base_n}dev": {
+                r["n_devices"]: round(r["ms_per_frame"] / base_ms, 3)
+                for r in results}}

@@ -29,7 +29,6 @@ import logging
 import os
 import time
 from collections import deque
-from typing import Optional
 
 import numpy as np
 
@@ -55,7 +54,6 @@ class ServeDaemon:
         queue_size: int = 5,
         approximate_sync: bool = False,
         idle_timeout: float = 0.0,
-        use_pallas: Optional[bool] = None,
         save_outputs: bool = True,
     ):
         from ros_gpu_stereo_processor_tpu.config import PipelineConfig
@@ -69,7 +67,6 @@ class ServeDaemon:
         self.queue_size = queue_size
         self.approximate_sync = approximate_sync
         self.idle_timeout = idle_timeout
-        self.use_pallas = use_pallas
         self.save_outputs = save_outputs
 
         os.makedirs(out_dir, exist_ok=True)
@@ -104,8 +101,7 @@ class ServeDaemon:
         from ros_gpu_stereo_processor_tpu.utils.calib import StereoCameraModel
 
         model = StereoCameraModel.from_files(calib_left, calib_right)
-        self.pipe = StereoPipeline(model, self.config,
-                                   use_pallas=self.use_pallas)
+        self.pipe = StereoPipeline(model, self.config)
         shape = (model.left.calib.height, model.left.calib.width)
         self.ingest = StreamingIngest(shape, capacity=self.queue_size,
                                       exact=not self.approximate_sync)

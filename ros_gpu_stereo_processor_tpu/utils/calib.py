@@ -21,7 +21,6 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
-import yaml
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +91,61 @@ def camera_info_to_calib(info: dict) -> CameraCalib:
     )
 
 
+def _yaml_scalar(val: str):
+    if len(val) >= 2 and val[0] == val[-1] and val[0] in "'\"":
+        return val[1:-1]
+    for cast in (int, float):
+        try:
+            return cast(val)
+        except ValueError:
+            pass
+    return val
+
+
+def parse_calib_yaml(text: str) -> dict:
+    """Parse the YAML subset that camera_calibration_parsers writes: top-level
+    ``key: scalar`` lines, and ``key:`` blocks of indented ``key: value``
+    lines whose value may be a ``[a, b, ...]`` flow list spanning lines.
+    Anything else raises ``ValueError``."""
+    doc: dict = {}
+    block = None
+    lines = iter(text.splitlines())
+    for raw in lines:
+        line = raw.split("#", 1)[0].rstrip()
+        if not line.strip() or line.strip() == "---":
+            continue
+        indent = len(line) - len(line.lstrip())
+        key, sep, val = line.strip().partition(":")
+        if not sep or not key:
+            raise ValueError(f"unparseable calibration line: {raw!r}")
+        val = val.strip()
+        if val.startswith("["):
+            while "]" not in val:
+                try:
+                    val += " " + next(lines).split("#", 1)[0].strip()
+                except StopIteration:
+                    raise ValueError(f"unterminated list for {key!r}") from None
+            body, _, rest = val[1:].partition("]")
+            if rest.strip():
+                raise ValueError(f"text after list for {key!r}: {rest!r}")
+            val = [float(x) for x in body.split(",") if x.strip()]
+        elif val:
+            val = _yaml_scalar(val)
+        if indent == 0:
+            block = {} if val == "" else None
+            doc[key] = block if block is not None else val
+        elif block is None:
+            raise ValueError(f"indented line outside a block: {raw!r}")
+        else:
+            block[key] = val
+    return doc
+
+
 def load_camera_calib(path: str) -> CameraCalib:
     """Parse a camera_calibration_parsers-style YAML file (the format of the
     reference's test calibrations, test/stereobm/test_data/{left,right}.yaml)."""
     with open(path, "r") as f:
-        doc = yaml.safe_load(f)
+        doc = parse_calib_yaml(f.read())
     return CameraCalib(
         width=int(doc["image_width"]),
         height=int(doc["image_height"]),

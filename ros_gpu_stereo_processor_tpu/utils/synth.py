@@ -13,12 +13,18 @@ runs unmodified on it.
 
 Geometry convention matches models/vo.py: poses are world←camera (T_wc),
 reference camera at the origin looking down +z at the plane z = Z0.
+
+The planar sequence and the distorted single frame are rendered in memory
+with numpy and ``scipy.ndimage`` (no OpenCV, no image files), so a run on
+any machine can make its own data from a seed; :func:`make_planar_euroc`
+writes the planar sequence out in the EuRoC layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -116,8 +122,68 @@ projection_matrix:
         f.write(doc)
 
 
-def make_planar_euroc(
-    root: str,
+def _sample_bilinear(img: np.ndarray, sx: np.ndarray,
+                     sy: np.ndarray) -> np.ndarray:
+    """uint8 image sampled at real (x, y) source positions: bilinear, zero
+    outside the image per tap (OpenCV's INTER_LINEAR + BORDER_CONSTANT)."""
+    from scipy import ndimage
+
+    out = ndimage.map_coordinates(img.astype(np.float64), [sy, sx], order=1,
+                                  mode="grid-constant", cval=0.0)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _warp_perspective(img: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """dst(x) = img(H⁻¹ x), same size — cv2.warpPerspective semantics."""
+    h, w = img.shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    src = np.linalg.inv(H) @ np.stack([xx.ravel(), yy.ravel(),
+                                       np.ones(h * w)])
+    return _sample_bilinear(img, (src[0] / src[2]).reshape(h, w),
+                            (src[1] / src[2]).reshape(h, w))
+
+
+def _blurred_texture(rng, shape, sigma: float) -> np.ndarray:
+    """Random uint8 texture under a 3×3 Gaussian blur (reflect-101 border)."""
+    from scipy import ndimage
+
+    tex = rng.integers(0, 255, shape, np.uint8).astype(np.float64)
+    tex = ndimage.gaussian_filter(tex, sigma, mode="mirror",
+                                  truncate=1.0 / sigma)
+    return np.clip(np.rint(tex), 0, 255).astype(np.uint8)
+
+
+def _pinhole_calib(name: str, W: int, H: int, fx: float, tx: float):
+    from ros_gpu_stereo_processor_tpu.utils.calib import CameraCalib
+
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+    P = np.hstack([K, np.array([[tx], [0.0], [0.0]])])
+    return CameraCalib(W, H, K, np.zeros(5), np.eye(3), P, name)
+
+
+@dataclasses.dataclass
+class PlanarSequence:
+    """An in-memory stereo sequence with exact ground truth."""
+
+    lefts: np.ndarray           # (N, H, W) uint8
+    rights: np.ndarray          # (N, H, W) uint8
+    stamps: np.ndarray          # (N,) seconds
+    poses: List[Tuple[np.ndarray, np.ndarray]]   # world←camera (R_wc, t_wc)
+    calib_left: object          # utils.calib.CameraCalib
+    calib_right: object
+
+    def model(self):
+        from ros_gpu_stereo_processor_tpu.utils.calib import StereoCameraModel
+
+        return StereoCameraModel.from_calibs(self.calib_left, self.calib_right)
+
+    def frames(self):
+        """(left, right, stamp) triples — the input of StereoSlam.run_stream."""
+        return [(l, r, float(t))
+                for l, r, t in zip(self.lefts, self.rights, self.stamps)]
+
+
+def render_planar_sequence(
     n_frames: int = 80,
     width: int = 400,
     height: int = 300,
@@ -127,39 +193,47 @@ def make_planar_euroc(
     fps: float = 10.0,
     seed: int = 0,
     radius: float = 0.3,
-) -> Tuple[str, str]:
-    """Render a planar-scene EuRoC-layout dataset with ground truth.
-
-    Returns (calib_left_yaml, calib_right_yaml) paths (written under root).
-    """
-    import cv2
-
+) -> PlanarSequence:
+    """Render a textured plane z=Z0 seen by a rectified stereo rig moving on
+    :func:`loop_trajectory`.  Every view is an exact homography warp of one
+    texture, so the ground-truth trajectory is exact."""
     K = np.array([[fx, 0, width / 2], [0, fx, height / 2], [0, 0, 1.0]])
     rng = np.random.default_rng(seed)
-    tex = rng.integers(0, 255, (height, width), np.uint8)
-    tex = cv2.GaussianBlur(tex, (3, 3), 0.6)
-
+    tex = _blurred_texture(rng, (height, width), 0.6)
     Hlr = _plane_homography(
         K, np.eye(3), np.array([-baseline, 0.0, 0.0]), Z0)
     poses = loop_trajectory(n_frames, radius=radius)
+    lefts = np.empty((n_frames, height, width), np.uint8)
+    rights = np.empty_like(lefts)
+    for i, (R_wc, t_wc) in enumerate(poses):
+        Hl = _plane_homography(K, R_wc.T, -(R_wc.T @ t_wc), Z0)
+        lefts[i] = _warp_perspective(tex, Hl)
+        rights[i] = _warp_perspective(tex, Hlr @ Hl)
+    return PlanarSequence(
+        lefts=lefts, rights=rights,
+        stamps=1.0 + np.arange(n_frames) / fps,
+        poses=poses,
+        calib_left=_pinhole_calib("left", width, height, fx, 0.0),
+        calib_right=_pinhole_calib("right", width, height, fx,
+                                   -fx * baseline),
+    )
+
+
+def _write_euroc(root: str, lefts, rights, stamps, poses) -> None:
+    """EuRoC MAV layout: mav0/cam{0,1}/data/*.png + data.csv and the
+    ground-truth state csv."""
+    import imageio.v3 as iio
 
     for cam in ("cam0", "cam1"):
         os.makedirs(os.path.join(root, "mav0", cam, "data"), exist_ok=True)
     gt_dir = os.path.join(root, "mav0", "state_groundtruth_estimate0")
     os.makedirs(gt_dir, exist_ok=True)
-
     rows = {"cam0": [], "cam1": []}
     gt_rows = []
-    for i, (R_wc, t_wc) in enumerate(poses):
-        R_cw, t_cw = R_wc.T, -(R_wc.T @ t_wc)
-        Hl = _plane_homography(K, R_cw, t_cw, Z0)
-        left = cv2.warpPerspective(tex, Hl, (width, height),
-                                   flags=cv2.INTER_LINEAR)
-        right = cv2.warpPerspective(tex, Hlr @ Hl, (width, height),
-                                    flags=cv2.INTER_LINEAR)
-        ts = int((1.0 + i / fps) * 1e9)
+    for left, right, stamp, (R_wc, t_wc) in zip(lefts, rights, stamps, poses):
+        ts = int(round(stamp * 1e9))
         for cam, img in (("cam0", left), ("cam1", right)):
-            cv2.imwrite(
+            iio.imwrite(
                 os.path.join(root, "mav0", cam, "data", f"{ts}.png"), img)
             rows[cam].append(f"{ts},{ts}.png")
         q = rot_to_quat(R_wc)
@@ -175,11 +249,90 @@ def make_planar_euroc(
                 "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z [], ...\n"
                 + "\n".join(gt_rows) + "\n")
 
+
+def make_planar_euroc(
+    root: str,
+    n_frames: int = 80,
+    width: int = 400,
+    height: int = 300,
+    fx: float = 350.0,
+    baseline: float = 0.1,
+    Z0: float = 3.0,
+    fps: float = 10.0,
+    seed: int = 0,
+    radius: float = 0.3,
+) -> Tuple[str, str]:
+    """Write :func:`render_planar_sequence` as an EuRoC-layout dataset with
+    ground truth.  Returns (calib_left_yaml, calib_right_yaml) paths
+    (written under root)."""
+    seq = render_planar_sequence(n_frames, width, height, fx, baseline, Z0,
+                                 fps, seed, radius)
+    _write_euroc(root, seq.lefts, seq.rights, seq.stamps, seq.poses)
     cl = os.path.join(root, "calib_left.yaml")
     cr = os.path.join(root, "calib_right.yaml")
     _calib_yaml(cl, "left", width, height, fx, 0.0)
     _calib_yaml(cr, "right", width, height, fx, -fx * baseline)
     return cl, cr
+
+
+def euroc_rig_frame(seed: int = 0, max_disparity: int = 48,
+                    width: int = 752, height: int = 480):
+    """One raw mono8 frame of a EuRoC-class rig (752×480 by default) with
+    real lens distortion, and the disparity its rectified view should give.
+
+    The calibration has plumb_bob distortion (k1=−0.37, k2=0.11) and a
+    rectified projection different from the raw intrinsics, so the
+    rectification maps do real work; other sizes scale the intrinsics.  The
+    scene is :func:`utils.io.synthetic_stereo_pair` (exact integer
+    disparity) placed in the RECTIFIED frame; each raw image samples it at
+    the rectified position of every raw pixel (iterative undistortion), so
+    rectifying the raw pair gives the scene back up to interpolation blur.
+
+    Returns (StereoCameraModel, left_raw, right_raw, gt_disparity), the
+    last in rectified pixels.
+    """
+    from ros_gpu_stereo_processor_tpu.utils.calib import (
+        CameraCalib, StereoCameraModel,
+    )
+    from ros_gpu_stereo_processor_tpu.utils.io import synthetic_stereo_pair
+
+    W, H = width, height
+    s = W / 752.0
+    K = np.array([[460.0 * s, 0, W / 2], [0, 460.0 * s, H / 2], [0, 0, 1.0]])
+    D = np.array([-0.37, 0.11, 0.0, 0.0, 0.0])
+    P = np.array([[441.0 * s, 0, W / 2 - 54 * s, 0.0],
+                  [0, 441.0 * s, H / 2 - 10 * s, 0.0], [0, 0, 1.0, 0.0]])
+    Pr = P.copy()
+    Pr[0, 3] = -441.0 * s * 0.1           # 10 cm baseline
+    model = StereoCameraModel.from_calibs(
+        CameraCalib(W, H, K, D, np.eye(3), P, "left"),
+        CameraCalib(W, H, K, D, np.eye(3), Pr, "right"))
+    left_r, right_r, disp = synthetic_stereo_pair(H, W, max_disparity, seed)
+    sx, sy = _rectified_coords(K, D, np.eye(3), P, W, H)
+    return (model, _sample_bilinear(left_r, sx, sy),
+            _sample_bilinear(right_r, sx, sy), disp)
+
+
+def _rectified_coords(K, D, R, P, W: int, H: int, iters: int = 20):
+    """Rectified-image position of every raw pixel: the inverse of
+    utils.calib.undistort_rectify_map (undistortion by fixed-point
+    iteration, as OpenCV's undistortPoints)."""
+    k1, k2, p1, p2, k3 = (list(D) + [0.0] * 5)[:5]
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    yd = (v - K[1, 2]) / K[1, 1]
+    xd = (u - K[0, 2] - K[0, 1] * yd) / K[0, 0]
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 ** 3
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    ray = np.tensordot(np.asarray(R, np.float64),
+                       np.stack([x, y, np.ones_like(x)]), axes=1)
+    return (P[0, 0] * ray[0] / ray[2] + P[0, 2],
+            P[1, 1] * ray[1] / ray[2] + P[1, 2])
 
 
 def make_layered_euroc(
@@ -345,34 +498,14 @@ def make_layered_euroc(
             img = (img * 0.25).astype(np.uint8)
         return img
 
-    for cam in ("cam0", "cam1"):
-        os.makedirs(os.path.join(root, "mav0", cam, "data"), exist_ok=True)
-    gt_dir = os.path.join(root, "mav0", "state_groundtruth_estimate0")
-    os.makedirs(gt_dir, exist_ok=True)
+    def views(right: bool):
+        for i, (R_wc, t_wc) in enumerate(poses):
+            yield render(R_wc.T, -(R_wc.T @ t_wc), right=right, i=i)
 
-    rows = {"cam0": [], "cam1": []}
-    gt_rows = []
-    for i, (R_wc, t_wc) in enumerate(poses):
-        R_cw, t_cw = R_wc.T, -(R_wc.T @ t_wc)
-        left = render(R_cw, t_cw, right=False, i=i)
-        rightimg = render(R_cw, t_cw, right=True, i=i)
-        ts = int((1.0 + i / fps) * 1e9)
-        for cam, img in (("cam0", left), ("cam1", rightimg)):
-            cv2.imwrite(
-                os.path.join(root, "mav0", cam, "data", f"{ts}.png"), img)
-            rows[cam].append(f"{ts},{ts}.png")
-        q = rot_to_quat(R_wc)
-        gt_rows.append(
-            f"{ts},{t_wc[0]:.9f},{t_wc[1]:.9f},{t_wc[2]:.9f},"
-            f"{q[0]:.9f},{q[1]:.9f},{q[2]:.9f},{q[3]:.9f},0,0,0,0,0,0,0,0,0"
-        )
-    for cam in ("cam0", "cam1"):
-        with open(os.path.join(root, "mav0", cam, "data.csv"), "w") as f:
-            f.write("#timestamp [ns],filename\n" + "\n".join(rows[cam]) + "\n")
-    with open(os.path.join(gt_dir, "data.csv"), "w") as f:
-        f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
-                "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z [], ...\n"
-                + "\n".join(gt_rows) + "\n")
+    # both generators advance together (zip), so rendering order — and the
+    # shared rng's noise draws — interleave left/right per frame as before
+    _write_euroc(root, views(False), views(True),
+                 1.0 + np.arange(n_frames) / fps, poses)
 
     cl = os.path.join(root, "calib_left.yaml")
     cr = os.path.join(root, "calib_right.yaml")

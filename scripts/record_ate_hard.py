@@ -74,8 +74,7 @@ def main():
         bm_kw["algorithm"] = "sgm"
     slam = StereoSlam(
         model,
-        SlamConfig(num_features=512, keyframe_every=4, window_size=5,
-                   use_pallas=False),
+        SlamConfig(num_features=512, keyframe_every=4, window_size=5),
         PipelineConfig(
             stereobm=StereoBMConfig(**bm_kw),
             speckle=SpeckleConfig(max_speckle_size=200),

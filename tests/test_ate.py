@@ -32,7 +32,7 @@ def test_slam_ate_under_10cm(synth_euroc, tmp_path, capsys):
         "--euroc", root, "--out-dir", str(tmp_path / "slam_out"),
         "--ndisp", "16", "--block", "9", "--features", "256",
         "--keyframe-every", "3", "--window", "5",
-        "--texture-threshold", "5", "--no-pallas",
+        "--texture-threshold", "5",
     ])
     assert rc == 0
     out = capsys.readouterr().out
@@ -59,8 +59,7 @@ def test_tracks_shared_across_windows(synth_euroc):
     model = StereoCameraModel.from_files(cl, cr)
     slam = StereoSlam(
         model,
-        SlamConfig(num_features=256, keyframe_every=2, window_size=3,
-                   use_pallas=False),
+        SlamConfig(num_features=256, keyframe_every=2, window_size=3),
         PipelineConfig(
             stereobm=StereoBMConfig(num_disparities=16, block_size=9,
                                     texture_threshold=5),
@@ -98,8 +97,7 @@ def test_checkpoint_roundtrips_tracks(synth_euroc, tmp_path):
     root, cl, cr = synth_euroc
     model = StereoCameraModel.from_files(cl, cr)
     cfgs = dict(
-        config=SlamConfig(num_features=256, keyframe_every=2, window_size=3,
-                          use_pallas=False),
+        config=SlamConfig(num_features=256, keyframe_every=2, window_size=3),
         pipeline_config=PipelineConfig(
             stereobm=StereoBMConfig(num_disparities=16, block_size=9,
                                     texture_threshold=5),

@@ -37,8 +37,7 @@ def _run_slam(root, cl, cr, ndisp=32, max_speckle=100):
     model = StereoCameraModel.from_files(cl, cr)
     slam = StereoSlam(
         model,
-        SlamConfig(num_features=384, keyframe_every=3, window_size=5,
-                   use_pallas=False),
+        SlamConfig(num_features=384, keyframe_every=3, window_size=5),
         PipelineConfig(
             stereobm=StereoBMConfig(num_disparities=ndisp, block_size=11,
                                     texture_threshold=10),

@@ -135,7 +135,7 @@ def test_pipeline_integration(stereo_model, kitchen_images):
     from ros_gpu_stereo_processor_tpu.config import Outputs, PipelineConfig
     from ros_gpu_stereo_processor_tpu.models.pipeline import StereoPipeline
 
-    pipe = StereoPipeline(stereo_model, PipelineConfig(), use_pallas=False)
+    pipe = StereoPipeline(stereo_model, PipelineConfig())
     outs = Outputs.of("disparity")
     base = pipe.process(
         kitchen_images["left"], kitchen_images["right"], outs

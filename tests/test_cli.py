@@ -51,7 +51,7 @@ def test_compare_euroc_aggregate(tmp_path, calib, capsys):
         "compare", "--calib-left", calib[0], "--calib-right", calib[1],
         "--euroc", root, "--dump-dir", dump,
         "--ndisp", "16", "--block", "9", "--texture-threshold", "5",
-        "--speckle-size", "0", "--no-pallas",
+        "--speckle-size", "0",
     ])
     out = capsys.readouterr().out
     assert rc == 0, out
@@ -76,7 +76,7 @@ def test_compare_single_pair(tmp_path, calib, capsys):
         "compare", "--calib-left", calib[0], "--calib-right", calib[1],
         "--left", lp, "--right", rp,
         "--ndisp", "16", "--block", "9", "--texture-threshold", "5",
-        "--speckle-size", "0", "--no-pallas",
+        "--speckle-size", "0",
     ])
     assert rc == 0
 
@@ -89,7 +89,7 @@ def test_run_euroc(tmp_path, calib, capsys):
         "run", "--calib-left", calib[0], "--calib-right", calib[1],
         "--euroc", root, "--out-dir", out_dir, "--save-frames", "1",
         "--outputs", "disparity,disparity_vis",
-        "--ndisp", "16", "--block", "5", "--no-pallas",
+        "--ndisp", "16", "--block", "5",
     ])
     assert rc == 0
     assert os.path.exists(os.path.join(out_dir, "disparity_0000.npy"))
@@ -111,7 +111,6 @@ def test_run_multichip(tmp_path, calib):
         "--euroc", root, "--out-dir", out_dir, "--save-frames", "1",
         "--outputs", "disparity", "--devices", "8",
         "--ndisp", "16", "--block", "5", "--speckle-size", "0",
-        "--no-pallas",
     ])
     assert rc == 0
     d = np.load(os.path.join(out_dir, "disparity_0000.npy"))

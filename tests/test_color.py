@@ -23,7 +23,7 @@ def test_bgr_to_mono_controlled_exact():
 
 def test_bgr_to_mono_random_within_1lsb():
     """Random images: within 1 LSB of cv2 (whose float path rounds in higher
-    intermediate precision than a TPU f32 kernel)."""
+    intermediate precision than an f32 kernel)."""
     rng = np.random.default_rng(0)
     bgr = rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8)
     ref = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)

@@ -322,7 +322,6 @@ def test_disparity_wire_config_publish_path():
             model,
             PipelineConfig(disparity_wire=wirename, stereobm=bm,
                            speckle=SpeckleConfig(max_speckle_size=0)),
-            use_pallas=False,
         )
         msgs_out = []
         pipe.senders.register("disparity", msgs_out.append)

@@ -69,7 +69,7 @@ def _mk(tmp_path, **kw):
     os.makedirs(watch, exist_ok=True)
     return watch, out, ServeDaemon(
         watch_dir=watch, out_dir=out, outputs=Outputs.of("disparity"),
-        config=_cfg(), use_pallas=False, **kw,
+        config=_cfg(), **kw,
     )
 
 

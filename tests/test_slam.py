@@ -48,7 +48,7 @@ def slam_run():
     model = toy_model()
     cfg = SlamConfig(
         num_features=256, keyframe_every=2, window_size=3,
-        ba_landmarks=64, use_pallas=False,
+        ba_landmarks=64,
     )
     pcfg = PipelineConfig(
         stereobm=StereoBMConfig(num_disparities=16, block_size=9,
@@ -94,7 +94,7 @@ def test_checkpoint_roundtrip(tmp_path, slam_run):
     slam.save_checkpoint(path)
 
     model = toy_model()
-    slam2 = StereoSlam(model, SlamConfig(use_pallas=False))
+    slam2 = StereoSlam(model, SlamConfig())
     slam2.load_checkpoint(path)
     assert len(slam2.store) == len(slam.store)
     np.testing.assert_allclose(
@@ -157,7 +157,7 @@ def test_loop_closure_detection_and_correction():
 
     model = toy_model()
     cfg = SlamConfig(num_features=256, keyframe_every=1, window_size=2,
-                     ba_landmarks=64, use_pallas=False,
+                     ba_landmarks=64,
                      keyframe_min_translation=1e9, keyframe_min_rotation=1e9)
     pcfg = PipelineConfig(
         stereobm=StereoBMConfig(num_disparities=16, block_size=9,
@@ -221,7 +221,7 @@ def test_run_stream_async_mapping_matches_sync():
         return StereoSlam(
             model,
             SlamConfig(num_features=256, keyframe_every=2, window_size=3,
-                       ba_landmarks=64, use_pallas=False),
+                       ba_landmarks=64),
             PipelineConfig(
                 stereobm=StereoBMConfig(num_disparities=16, block_size=9,
                                         texture_threshold=5),
@@ -253,7 +253,7 @@ def test_ba_reanchor_keeps_poses_on_so3():
     slam = StereoSlam(
         model,
         SlamConfig(num_features=256, keyframe_every=1, window_size=4,
-                   ba_landmarks=64, use_pallas=False),
+                   ba_landmarks=64),
         PipelineConfig(
             stereobm=StereoBMConfig(num_disparities=16, block_size=9,
                                     texture_threshold=5),
@@ -288,7 +288,7 @@ def test_slam_mesh_integrated_matches_unsharded():
         return StereoSlam(
             model,
             SlamConfig(num_features=256, keyframe_every=2, window_size=3,
-                       ba_landmarks=64, use_pallas=False),
+                       ba_landmarks=64),
             PipelineConfig(
                 stereobm=StereoBMConfig(num_disparities=16, block_size=9,
                                         texture_threshold=5),
@@ -332,7 +332,7 @@ def test_slam_mesh_with_async_mapping():
     slam = StereoSlam(
         model,
         SlamConfig(num_features=256, keyframe_every=2, window_size=3,
-                   ba_landmarks=64, use_pallas=False),
+                   ba_landmarks=64),
         PipelineConfig(
             stereobm=StereoBMConfig(num_disparities=16, block_size=9,
                                     texture_threshold=5),

@@ -94,49 +94,10 @@ def test_invalid_input_stays_invalid():
     assert np.asarray(keep)[16:].all()
 
 
-# ---------------------------------------------------------------------------
-# Pallas path (VMEM-resident label propagation + gather-free root-bit
-# propagation): must be BIT-identical to the jnp scan path.  On CPU CI the
-# kernels run in the Pallas interpreter.
-# ---------------------------------------------------------------------------
-
-def _random_case(rng, H, W):
-    disp = (rng.random((H, W)) * 40).astype(np.float32)
-    disp[10:20, 30:60] = 12.0          # flat patch → one big component
-    disp[2:5, 2:5] = 33.0              # small speckle
-    valid = rng.random((H, W)) > 0.3
-    return disp, valid
-
-
-@pytest.mark.parametrize("shape", [(48, 130), (40, 128), (37, 257), (64, 752)])
-def test_pallas_labels_match_scan(shape):
-    from ros_gpu_stereo_processor_tpu.ops.speckle import _labels_scan
-    from ros_gpu_stereo_processor_tpu.ops.speckle_pallas import labels_pallas
-
-    rng = np.random.default_rng(7)
-    disp, valid = _random_case(rng, *shape)
-    l_ref = np.asarray(_labels_scan(jnp.asarray(disp), jnp.asarray(valid), 5.0, 8))
-    l_pal = np.asarray(labels_pallas(jnp.asarray(disp), jnp.asarray(valid), 5.0, 8))
-    np.testing.assert_array_equal(l_ref, l_pal)
-
-
-@pytest.mark.parametrize("shape", [(48, 130), (64, 752)])
-def test_pallas_filter_matches_scan(shape):
-    rng = np.random.default_rng(11)
-    disp, valid = _random_case(rng, *shape)
-    dr, kr = filter_speckles(
-        jnp.asarray(disp), jnp.asarray(valid), 50, 5.0, 8, method="scan")
-    dp, kp = filter_speckles(
-        jnp.asarray(disp), jnp.asarray(valid), 50, 5.0, 8, method="pallas")
-    np.testing.assert_array_equal(np.asarray(dr), np.asarray(dp))
-    np.testing.assert_array_equal(np.asarray(kr), np.asarray(kp))
-
-
 @pytest.mark.parametrize("T", [0, 1, 7, 40, 4095, 4096])
 def test_keep_large_components_matches_bincount(T):
     """The 2-sort windowed run-extent decision equals exact
-    ``bincount(lab)[lab] > T`` for ANY label image (scatter-add histograms
-    and sizes[lab] gathers serialize on TPU)."""
+    ``bincount(lab)[lab] > T`` for ANY label image."""
     from ros_gpu_stereo_processor_tpu.ops.speckle import (
         _keep_large_components,
     )
@@ -170,25 +131,3 @@ def test_keep_decision_exact_on_nonconverged_labels():
     want = (np.bincount(lab.reshape(-1), minlength=H * W + 1)[lab] > T)
     got = np.asarray(sp._keep_large_components(jnp.asarray(lab), T))
     np.testing.assert_array_equal(got, want)
-
-
-def test_max_propagate_pallas_matches_jnp():
-    """VMEM max-propagation (sizing broadcast-back) is an exact twin of the
-    jnp sweeps, including band-cut connectivity."""
-    import jax.numpy as jnp
-
-    from ros_gpu_stereo_processor_tpu.ops import speckle as sp
-    from ros_gpu_stereo_processor_tpu.ops.speckle_pallas import (
-        max_propagate_pallas,
-    )
-
-    rng = np.random.default_rng(7)
-    H, W = 48, 160
-    disp = np.where(rng.random((H, W)) < 0.7,
-                    rng.integers(0, 3, (H, W)).astype(np.float32) * 6.0, -1.0)
-    valid = disp >= 0
-    cx, cy = sp._connectivity(jnp.asarray(disp), jnp.asarray(valid), 2.0)
-    field = jnp.asarray(rng.integers(0, 900, (H, W)).astype(np.int32))
-    ref = np.asarray(sp._max_propagate(field, cx, cy, 64))
-    got = np.asarray(max_propagate_pallas(field, cx, cy, 64))
-    np.testing.assert_array_equal(got, ref)

@@ -109,7 +109,7 @@ def test_slam_6dof_sequence():
     slam = StereoSlam(
         model,
         SlamConfig(num_features=384, keyframe_every=2, window_size=3,
-                   ba_landmarks=96, use_pallas=False),
+                   ba_landmarks=96),
         PipelineConfig(
             stereobm=StereoBMConfig(num_disparities=16, block_size=9,
                                     texture_threshold=5),
